@@ -6,16 +6,16 @@ diffuse walls/sphere, an emissive area light, a GLASS sphere, and a
 MIRROR sphere (the extension material, config.py:20) — is rendered at
 full config-4 scale for a ground-truth target; the albedo and emission
 spectra are then perturbed and recovered by Adam over the Pallas
-fwd+bwd megakernels (train/optimize.py).
+XLA tracer's fwd+bwd (train/optimize.py).
 
-Artifacts (into --out-dir, committed as STAGED records/images):
+Artifacts (into --out-dir):
   config4_record.json   loss curve, spectra errors, timings
   config4_target.png    ground truth
   config4_before.png    perturbed start
   config4_after.png     recovered result
 
     python benchmarks/config4_material_recovery.py \
-        --size 1024 --spp 4 --steps 40 --out-dir benchmarks/artifacts
+        --size 1024 --spp 4 --steps 40 --out-dir chiprun_out/config4
 """
 
 from __future__ import annotations
@@ -29,22 +29,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def multi_material_scene(width: int, height: int) -> dict:
-    """Cornell walls + area light + diffuse, glass AND mirror spheres."""
-    from computeraytracer_tpu.scene import presets
-
-    doc = presets.cornell_box(width, height)
-    doc["objects"]["spheres"] = [
-        {"center": [420.0, 90.0, 150.0], "radius": 90.0,
-         "emission": "dark", "reflectance": "red", "type": "diffuse"},
-        {"center": [160.0, 90.0, 145.0], "radius": 90.0,
-         "emission": "dark", "reflectance": "white", "type": "glass"},
-        {"center": [290.0, 420.0, 380.0], "radius": 85.0,
-         "emission": "dark", "reflectance": "white", "type": "mirror"},
-    ]
-    return doc
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=1024)
@@ -56,24 +40,23 @@ def main() -> int:
     ap.add_argument("--depth", type=int, default=6)
     ap.add_argument("--steps", type=int, default=80)
     ap.add_argument("--lr", type=float, default=0.06)
-    ap.add_argument("--out-dir", default="benchmarks/artifacts")
+    ap.add_argument("--out-dir", default="chiprun_out/config4")
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/crt_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from computeraytracer.ops import color
+    from computeraytracer.scene import presets, scene_from_dict
+    from computeraytracer.train import optimize as opt
+    from computeraytracer.utils import compile_cache
+    from computeraytracer.utils.image import write_png
 
-    from computeraytracer_tpu.ops import color
-    from computeraytracer_tpu.scene import scene_from_dict
-    from computeraytracer_tpu.train import optimize as opt
-    from computeraytracer_tpu.utils.image import write_png
-
+    compile_cache.enable()
     w = h = args.size
     os.makedirs(args.out_dir, exist_ok=True)
-    scene, _ = scene_from_dict(multi_material_scene(w, h))
+    scene, _ = scene_from_dict(presets.multi_material_box(w, h))
     tspp = args.target_spp or args.spp
 
     def png(path, img_hw3, spp):
@@ -82,7 +65,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     target = jax.block_until_ready(opt.render_mean_xyz(
-        scene, w, h, spp=tspp, max_depth=args.depth, kernel="pallas"))
+        scene, w, h, spp=tspp, max_depth=args.depth)
     t_target = time.perf_counter() - t0
     png(os.path.join(args.out_dir, "config4_target.png"), target, tspp)
 
@@ -98,7 +81,7 @@ def main() -> int:
         .at[0].mul(0.7)                           # white albedo dimmed
         .at[3].mul(1.3))                          # light overdriven
     before = opt.render_mean_xyz(perturbed, w, h, spp=args.spp,
-                                 max_depth=args.depth, kernel="pallas")
+                                 max_depth=args.depth)
     png(os.path.join(args.out_dir, "config4_before.png"), before, args.spp)
 
     losses = []
@@ -106,7 +89,7 @@ def main() -> int:
     recovered, losses = opt.optimize(
         perturbed, target, w, h, trainable=("spectra",),
         steps=args.steps, learning_rate=args.lr, spp=args.spp,
-        max_depth=args.depth, kernel="pallas", lr_schedule="cosine",
+        max_depth=args.depth, lr_schedule="cosine",
         # train the materials under optimization (white, red, light):
         # with every row free, unperturbed albedos drift along the
         # joint loss valley to absorb residual error (measured: green
@@ -117,7 +100,7 @@ def main() -> int:
     t_opt = time.perf_counter() - t0
 
     after = opt.render_mean_xyz(recovered, w, h, spp=args.spp,
-                                max_depth=args.depth, kernel="pallas")
+                                max_depth=args.depth)
     png(os.path.join(args.out_dir, "config4_after.png"), after, args.spp)
 
     sp_err0 = float(jnp.abs(jnp.asarray(perturbed.spectra) - spectra0).max())
@@ -136,7 +119,8 @@ def main() -> int:
         "config": 4,
         "scene": "cornell multi-material (diffuse/glass/mirror/emissive)",
         "resolution": [w, h], "spp": args.spp, "max_depth": args.depth,
-        "steps": args.steps, "kernel": "pallas",
+        "steps": args.steps, "tracer": "xla",
+        "device": jax.devices()[0].device_kind,
         "initial_loss": losses[0], "final_loss": losses[-1],
         "loss_curve": [round(x, 8) for x in losses],
         "spectra_maxerr_before": round(sp_err0, 5),

@@ -1,11 +1,12 @@
 #!/usr/bin/env python
-"""Capture an XProf trace of one render and print top device ops.
+"""Capture a profiler trace of one render and print the top device ops.
 
-The quick answer to "where does device time actually go" without
-TensorBoard: runs a few warmed iterations under jax.profiler.trace
-(utils/profiling.py) and aggregates the trace's device-side events.
+The quick answer to "where does device time go" without TensorBoard:
+runs a few warmed iterations under jax.profiler.trace
+(utils/profiling.py) and sums the device planes' event durations from
+the trace's .xplane.pb.
 
-    python benchmarks/trace_breakdown.py --size 512 --depth 8 --grad
+    python benchmarks/trace_breakdown.py --size 1024 --depth 8 --grad
 """
 
 from __future__ import annotations
@@ -13,40 +14,33 @@ from __future__ import annotations
 import argparse
 import collections
 import glob
-import gzip
-import json
 import os
 import sys
 import tempfile
-
-import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def summarize(logdir: str, top: int = 25) -> None:
+    import jax
+
     paths = sorted(glob.glob(
-        os.path.join(logdir, "plugins/profile/*/*.trace.json.gz")))
+        os.path.join(logdir, "plugins/profile/*/*.xplane.pb")))
     if not paths:
-        print("no trace files found")
-        return
-    with gzip.open(paths[-1]) as f:
-        data = json.load(f)
-    events = data["traceEvents"]
-    pids = {e["pid"]: e["args"].get("name", "")
-            for e in events
-            if e.get("ph") == "M" and e.get("name") == "process_name"}
+        raise FileNotFoundError(f"no .xplane.pb under {logdir}")
+    data = jax.profiler.ProfileData.from_file(paths[-1])
     dur = collections.Counter()
-    for e in events:
-        if e.get("ph") == "X" and "dur" in e:
-            pname = pids.get(e.get("pid"), "?")
-            if "CPU" in pname.upper():
-                continue  # host-side python frames: not device cost
-            dur[e["name"]] += e["dur"]
+    for plane in data.planes:
+        if not plane.name.startswith("/device:"):
+            continue  # host threads: not device cost
+        for line in plane.lines:
+            for e in line.events:
+                dur[e.name] += e.duration_ns
     total = sum(dur.values())
-    print(f"device total: {total / 1000:.2f} ms (all iterations)")
+    print(f"device total: {total / 1e6:.2f} ms (all iterations, all "
+          "device lines)")
     for name, d in dur.most_common(top):
-        print(f"{d / 1000:10.2f} ms  {100 * d / total:5.1f}%  {name[:100]}")
+        print(f"{d / 1e6:10.2f} ms  {100 * d / total:5.1f}%  {name[:100]}")
 
 
 def main() -> int:
@@ -56,54 +50,42 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--grad", action="store_true",
                     help="trace value_and_grad instead of forward")
+    ap.add_argument("--kernel", choices=["xla", "triton"], default="xla",
+                    help="forward tracer")
     ap.add_argument("--mesh", type=int, default=0, metavar="SUB",
-                    help="trace the mesh wavefront (subdivisions=SUB)")
+                    help="trace the mesh scene (subdivisions=SUB)")
     ap.add_argument("--logdir", default=None)
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/crt_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from computeraytracer.bvh import builder
+    from computeraytracer.scene import presets, scene_from_dict
+    from computeraytracer.tracer import api
+    from computeraytracer.utils import compile_cache, profiling
 
-    from computeraytracer_tpu.scene import presets, scene_from_dict
-    from computeraytracer_tpu.tracer import pallas as pt
-    from computeraytracer_tpu.utils import profiling
-
+    compile_cache.enable()
     W = H = args.size
     if args.mesh:
         scene, _ = scene_from_dict(
             presets.mesh_scene(W, H, subdivisions=args.mesh))
     else:
         scene, _ = scene_from_dict(presets.cornell_box(W, H))
-    static = pt.SceneStatic.from_scene(scene)
+    bvh = builder.auto_bvh(scene)
+
+    def image(s):
+        return api.render_sample(s, W, H, 1, max_depth=args.depth,
+                                 kernel=args.kernel, bvh=bvh)
 
     if args.grad:
-        def loss(spectra):
-            s = scene._replace(spectra=spectra)
-            img = pt.render_sample(s, W, H, 1, max_depth=args.depth,
-                                   static=static)
-            return jnp.mean(img ** 2)
-
-        g = jax.jit(jax.value_and_grad(loss))
+        g = jax.jit(jax.value_and_grad(
+            lambda sp: jnp.mean(image(scene._replace(spectra=sp)) ** 2)))
         spectra = jnp.asarray(scene.spectra)
         run = lambda: jax.block_until_ready(g(spectra))
-    elif args.mesh:
-        packs = pt.mesh_packs_for(scene, static)
-        f = jax.jit(lambda: pt.render_sample_planar(
-            scene, W, H, 1, max_depth=args.depth, static=static,
-            mesh_packs=packs, backward="none").sum())
-        run = lambda: _sync(f())
     else:
-        f = jax.jit(lambda s: pt.render_sample(
-            s, W, H, 1, max_depth=args.depth, static=static).sum())
-        run = lambda: _sync(f(scene))
-
-    def _sync(x):
-        jax.block_until_ready(x)
-        np.asarray(x)
-        return x
+        f = jax.jit(lambda s: image(s).sum())
+        run = lambda: jax.block_until_ready(f(scene))
 
     run(), run()  # compile + warm
     logdir = args.logdir or tempfile.mkdtemp(prefix="crt_trace_")

@@ -9,10 +9,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from computeraytracer_tpu import bvh as bvh_mod
-from computeraytracer_tpu.ops import intersect as isect
-from computeraytracer_tpu.scene import mesh, presets, scene_from_dict
-from computeraytracer_tpu.tracer import xla as xla_tracer
+from computeraytracer import bvh as bvh_mod
+from computeraytracer.ops import intersect as isect
+from computeraytracer.scene import mesh, presets, scene_from_dict
+from computeraytracer.tracer import xla as xla_tracer
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +62,7 @@ def _random_rays(scene, n, seed=0):
 
 
 def _assert_hits_match(scene, bvh, o, d, exclude):
-    from computeraytracer_tpu.scene import data as scene_data
+    from computeraytracer.scene import data as scene_data
     scene = scene_data.as_jax(scene)
     brute = isect.intersect_brute(o, d, exclude, scene.primitives)
     fast = bvh_mod.intersect_bvh(o, d, exclude, scene.primitives, bvh)
@@ -123,6 +123,95 @@ def test_gradients_through_bvh(mesh_scene_small):
     g_brt = np.asarray(jax.grad(loss)(spectra, False))
     assert np.isfinite(g_bvh).all()
     np.testing.assert_allclose(g_bvh, g_brt, rtol=1e-3, atol=1e-6)
+
+
+def _moved(scene, offset):
+    """mesh_scene with its triangles (rows 6+) shifted by `offset`."""
+    p = scene.primitives
+    shift = jnp.zeros_like(jnp.asarray(p.data1)).at[6:].add(
+        jnp.asarray(offset, jnp.float32))
+    return scene._replace(primitives=p._replace(
+        data1=jnp.asarray(p.data1) + shift,
+        data2=jnp.asarray(p.data2) + shift,
+        data3=jnp.asarray(p.data3) + shift))
+
+
+def test_refit_reproduces_built_boxes(mesh_scene_small):
+    """At the geometry it was built from, the refit gives the builder's
+    boxes bit for bit."""
+    bvh = bvh_mod.scene_bvh(mesh_scene_small, backend="numpy")
+    r = bvh_mod.make_refit(bvh)(mesh_scene_small.primitives)
+    np.testing.assert_array_equal(np.asarray(r.bbox_min), bvh.bbox_min)
+    np.testing.assert_array_equal(np.asarray(r.bbox_max), bvh.bbox_max)
+    np.testing.assert_array_equal(np.asarray(r.miss), bvh.miss)
+
+
+def test_refit_boxes_bound_moved_triangles(mesh_scene_small):
+    """After a vertex move every node box contains every primitive of
+    its subtree, and a stale box would not."""
+    bvh = bvh_mod.scene_bvh(mesh_scene_small)
+    moved = _moved(mesh_scene_small, (40.0, -25.0, 10.0))
+    r = bvh_mod.make_refit(bvh)(moved.primitives)
+    p = moved.primitives
+    lo, hi = bvh_mod.primitive_bounds(p.category, p.data1, p.data2, p.data3)
+    bmin, bmax = np.asarray(r.bbox_min), np.asarray(r.bbox_max)
+    leaf = np.asarray(bvh.leaf_prims)
+    stale = False
+    for i in range(bvh.n_nodes):
+        ids = leaf[i:bvh.miss[i]].reshape(-1)
+        ids = ids[ids >= 0]
+        assert (bmin[i] <= lo[ids]).all() and (bmax[i] >= hi[ids]).all()
+        stale |= bool((bvh.bbox_max[i] < hi[ids]).any())
+    assert stale  # the move really invalidated the built boxes
+
+
+def test_refit_render_and_gradient_match_brute(mesh_scene_small):
+    """Render and spectra/vertex gradient through the refit BVH match
+    the brute scan after a vertex move (the trainer's situation)."""
+    bvh = bvh_mod.scene_bvh(mesh_scene_small)
+    refit = bvh_mod.make_refit(bvh)
+    moved = _moved(mesh_scene_small, (30.0, 0.0, -20.0))
+    w = h = 8
+
+    def loss(spectra, d1, use_bvh):
+        s = moved._replace(spectra=spectra, primitives=moved.primitives
+                           ._replace(data1=d1))
+        b = refit(jax.lax.stop_gradient(s.primitives)) if use_bvh else None
+        return jnp.sum(xla_tracer.render_sample(s, w, h, 1, max_depth=2,
+                                                bvh=b) ** 2)
+
+    args = (jnp.asarray(moved.spectra), jnp.asarray(moved.primitives.data1))
+    vb, gb = jax.value_and_grad(loss, argnums=(0, 1))(*args, True)
+    vr, gr = jax.value_and_grad(loss, argnums=(0, 1))(*args, False)
+    np.testing.assert_allclose(float(vb), float(vr), rtol=1e-5)
+    for a, b in zip(gb, gr):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=1e-3, atol=1e-6)
+
+
+def test_auto_bvh_by_primitive_count(cornell_scene, mesh_scene_small):
+    assert bvh_mod.auto_bvh(cornell_scene) is None
+    assert bvh_mod.auto_bvh(mesh_scene_small) is not None
+
+
+def test_api_render_mesh_goes_through_bvh(mesh_scene_small, monkeypatch):
+    """render() on a mesh-size scene traverses the BVH, never the brute
+    scan, and matches the brute image."""
+    from computeraytracer.ops import intersect as isect
+    from computeraytracer.tracer import api
+
+    w = h = 8
+    want = np.asarray(xla_tracer.render_accumulate(
+        mesh_scene_small, w, h, 1, max_depth=2))
+
+    def no_brute(*a, **k):
+        raise AssertionError("brute scan used for a mesh scene")
+
+    monkeypatch.setattr(isect, "intersect_brute", no_brute)
+    out = api.render(mesh_scene_small, width=w, height=h, spp=1,
+                     max_depth=2)
+    np.testing.assert_allclose(np.asarray(out["accum_xyz"]), want,
+                               rtol=1e-4, atol=1e-5)
 
 
 def test_obj_roundtrip(tmp_path):

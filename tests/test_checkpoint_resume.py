@@ -10,7 +10,7 @@ renders are bit-identical.
 import numpy as np
 import pytest
 
-from computeraytracer_tpu.tracer import xla as xla_tracer
+from computeraytracer.tracer import xla as xla_tracer
 
 
 def test_progressive_resume_is_exact(cornell_scene):
@@ -34,7 +34,7 @@ def test_repeated_render_bit_exact(cornell_scene):
 
 
 def test_render_state_roundtrip(tmp_path, cornell_scene):
-    from computeraytracer_tpu.train import checkpoint as ckpt
+    from computeraytracer.train import checkpoint as ckpt
 
     w = h = 8
     accum = np.asarray(xla_tracer.render_accumulate(
@@ -49,7 +49,7 @@ def test_optimizer_checkpoint_roundtrip(tmp_path):
     import jax.numpy as jnp
     import optax
 
-    from computeraytracer_tpu.train import checkpoint as ckpt
+    from computeraytracer.train import checkpoint as ckpt
 
     params = {"spectra": jnp.arange(12.0).reshape(3, 4)}
     optimizer = optax.adam(1e-2)
@@ -64,6 +64,38 @@ def test_optimizer_checkpoint_roundtrip(tmp_path):
     assert step == 9
     np.testing.assert_array_equal(np.asarray(r_params["spectra"]),
                                   np.asarray(params["spectra"]))
+
+
+def test_checkpoint_refuses_other_layout(tmp_path):
+    """A checkpoint of another geometry layout version (or none) is
+    refused, never reinterpreted."""
+    import jax.numpy as jnp
+
+    from computeraytracer.train import checkpoint as ckpt
+
+    params = {"data2": jnp.ones((4, 3))}
+    c = ckpt.Checkpointer(str(tmp_path))
+    c.save(1, params)
+    path = tmp_path / "step_00000001.npz"
+    with np.load(path) as z:
+        arrays = dict(z)
+    for bad in ({**arrays, "layout_version": np.int64(1)},
+                {k: v for k, v in arrays.items() if k != "layout_version"}):
+        with open(path, "wb") as f:
+            np.savez(f, **bad)
+        with pytest.raises(ValueError, match="layout"):
+            c.restore(1, params)
+
+
+def test_checkpoint_refuses_mismatched_template(tmp_path):
+    import jax.numpy as jnp
+
+    from computeraytracer.train import checkpoint as ckpt
+
+    c = ckpt.Checkpointer(str(tmp_path))
+    c.save(3, {"a": jnp.zeros(2)})
+    with pytest.raises(ValueError, match="leaves"):
+        c.restore(3, {"a": jnp.zeros(2), "b": jnp.zeros(2)})
 
 
 # Golden regression: Cornell 8x8, sample 1, depth 3 on the CPU test

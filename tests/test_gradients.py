@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from computeraytracer_tpu.train import optimize as opt
+from computeraytracer.train import optimize as opt
 
 
 def _directional_fd(loss, params, key, eps, seed=0):
@@ -60,7 +60,7 @@ def test_vertex_gradients_match_fd():
     # shadowing). AD here is interior-only — silhouette/occlusion edge
     # terms are a known limitation shared with most differentiable
     # renderers without edge sampling.
-    from computeraytracer_tpu.scene import presets, scene_from_dict
+    from computeraytracer.scene import presets, scene_from_dict
     scene, _ = scene_from_dict(presets.unoccluded_scene(16, 16))
     w = h = 16
     params, static = opt.split_scene(scene, ("data1",))
@@ -111,16 +111,38 @@ def test_optimize_reduces_loss(simple_scene):
     assert losses[-1] < losses[0] * 0.8, losses
 
 
-def test_optimize_with_pallas_kernel(simple_scene):
-    """The optimization loop driven by the Pallas fwd+bwd megakernels."""
-    w = h = 12
-    target = opt.render_mean_xyz(simple_scene, w, h, spp=1, max_depth=2)
-    perturbed = simple_scene._replace(
-        spectra=jnp.asarray(simple_scene.spectra).at[2].mul(0.3))
-    _, losses = opt.optimize(perturbed, target, w, h, steps=6,
-                             learning_rate=0.05, spp=1, max_depth=2,
-                             kernel="pallas")
-    assert losses[-1] < losses[0] * 0.9, losses
+def test_mesh_train_step_uses_refit_bvh():
+    """A mesh-size scene trains through the BVH (bvh.builder.auto_bvh):
+    the step's loss and vertex gradient equal the brute-scan ones, and
+    a vertex move between steps keeps them equal (refit boxes)."""
+    import jax
+    import numpy as np
+
+    from computeraytracer.bvh import builder
+    from computeraytracer.scene import presets, scene_from_dict
+
+    scene, _ = scene_from_dict(presets.mesh_scene(8, 8, subdivisions=1))
+    assert int(scene.primitives.count) > builder.BVH_MIN_PRIMS
+    w = h = 8
+    target = jnp.zeros((h, w, 3), jnp.float32)
+    params, static = opt.split_scene(scene, ("spectra", "data1"))
+    loss_bvh = opt.make_loss_fn(static, w, h, 1, 2)
+
+    def loss_brute(p, tgt, s):
+        img = opt.render_mean_xyz(opt.merge_scene(static, p), w, h, 1, 2,
+                                  first_sample=s)
+        return jnp.mean((img - tgt) ** 2)
+
+    moved = dict(params, data1=jnp.asarray(params["data1"]).at[6:].add(
+        jnp.float32(15.0)))
+    for p in (params, moved):
+        lb, gb = jax.value_and_grad(loss_bvh)(p, target, jnp.uint32(1))
+        lr, gr = jax.value_and_grad(loss_brute)(p, target, jnp.uint32(1))
+        np.testing.assert_allclose(float(lb), float(lr), rtol=1e-5)
+        for k in p:
+            np.testing.assert_allclose(np.asarray(gb[k]), np.asarray(gr[k]),
+                                       rtol=1e-3, atol=1e-7)
+    assert np.abs(np.asarray(gb["data1"])[6:]).max() > 0
 
 
 def test_optimize_keeps_spectra_nonnegative(simple_scene):

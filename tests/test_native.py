@@ -8,9 +8,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from computeraytracer_tpu import bvh as bvh_mod
-from computeraytracer_tpu import native
-from computeraytracer_tpu.scene import mesh, presets, scene_from_dict
+from computeraytracer import bvh as bvh_mod
+from computeraytracer import native
+from computeraytracer.scene import mesh, presets, scene_from_dict
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no native toolchain")
@@ -57,7 +57,7 @@ def test_bounds_contain_primitives(mesh_scene_small):
 
 
 def test_same_hits_as_numpy_builder(mesh_scene_small):
-    from computeraytracer_tpu.scene import data as scene_data
+    from computeraytracer.scene import data as scene_data
 
     scene = scene_data.as_jax(mesh_scene_small)
     bvh_np = bvh_mod.scene_bvh(mesh_scene_small, backend="numpy")

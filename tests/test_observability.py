@@ -6,17 +6,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from computeraytracer_tpu.parallel import distributed, mesh as mesh_mod
-from computeraytracer_tpu.scene import presets, scene_from_dict
-from computeraytracer_tpu.tracer import xla as xla_tracer
-from computeraytracer_tpu.utils import debug, profiling
+from computeraytracer.parallel import distributed, mesh as mesh_mod
+from computeraytracer.scene import presets, scene_from_dict
+from computeraytracer.tracer import xla as xla_tracer
+from computeraytracer.utils import debug, profiling
+
+
+H100 = profiling.DEVICE_PEAKS["NVIDIA H100 80GB HBM3"]
 
 
 def test_roofline_sane():
-    r = profiling.roofline(1024, 1024, 1, 8, 18, mean_depth=3.0,
-                           chip="v5e")
+    r = profiling.roofline(1024, 1024, 1, 8, 18, H100, mean_depth=3.0)
     assert r.flops > 0 and r.hbm_bytes > 0
-    assert r.bound == "compute"  # path tracing is VPU-bound
+    assert r.bound == "compute"  # path tracing is f32-compute-bound
     assert r.sol_s == max(r.sol_compute_s, r.sol_memory_s)
     # measured time worse than speed of light -> fraction < 1
     assert 0 < r.fraction(r.sol_s * 10) < 1
@@ -24,9 +26,36 @@ def test_roofline_sane():
 
 
 def test_roofline_backward_costs_more():
-    fwd = profiling.roofline(256, 256, 1, 4, 18)
-    bwd = profiling.roofline(256, 256, 1, 4, 18, backward=True)
+    fwd = profiling.roofline(256, 256, 1, 4, 18, H100)
+    bwd = profiling.roofline(256, 256, 1, 4, 18, H100, backward=True)
     assert bwd.flops > fwd.flops
+
+
+class _FakeDevice:
+    def __init__(self, kind):
+        self.device_kind = kind
+
+
+def test_device_peaks_h100():
+    """The H100 SXM entry carries the published f32 and HBM peaks."""
+    p = profiling.device_peaks(_FakeDevice("NVIDIA H100 80GB HBM3"))
+    assert (p.f32_tflops, p.hbm_gbs) == (67.0, 3350.0)
+    assert "H100" in p.source
+    r = profiling.roofline(1024, 1024, 1, 8, 18, p)
+    assert r.sol_compute_s == pytest.approx(r.flops / 67e12)
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB",
+                                  "NVIDIA H100 PCIe"])
+def test_device_peaks_refuses_unknown(kind):
+    """A device without a table entry is an error, never a default."""
+    with pytest.raises(KeyError, match="no published peaks"):
+        profiling.device_peaks(_FakeDevice(kind))
+
+
+def test_device_peaks_refuses_cpu_backend():
+    with pytest.raises(KeyError):
+        profiling.device_peaks()
 
 
 def test_trace_writes_profile(tmp_path):

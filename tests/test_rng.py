@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from computeraytracer_tpu.ops import rng
-from computeraytracer_tpu.tracer import reference_cpu as oracle
+from computeraytracer.ops import rng
+from computeraytracer.tracer import reference_cpu as oracle
 
 
 def test_tea_matches_oracle():

@@ -4,9 +4,9 @@ import json
 
 import numpy as np
 
-from computeraytracer_tpu import config as C
-from computeraytracer_tpu.ops import spectrum as spec
-from computeraytracer_tpu.scene import presets, scene_from_dict, load_scene
+from computeraytracer import config as C
+from computeraytracer.ops import spectrum as spec
+from computeraytracer.scene import presets, scene_from_dict, load_scene
 
 
 def test_resample_spectrum_lerp():
@@ -131,7 +131,7 @@ def test_reference_assets_load_and_render():
     assert 0.5 < spectra[0].mean() < 0.9
 
     # a tiny render must be finite and non-black (both tracers).
-    from computeraytracer_tpu.tracer import xla as xla_tracer
+    from computeraytracer.tracer import xla as xla_tracer
 
     img = np.asarray(xla_tracer.render_sample(scene, 16, 16, 1,
                                               max_depth=3))

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from computeraytracer_tpu.parallel import mesh as mesh_mod
-from computeraytracer_tpu.parallel import render_sharded
-from computeraytracer_tpu.tracer import xla as xla_tracer
+from computeraytracer.parallel import mesh as mesh_mod
+from computeraytracer.parallel import render_sharded
+from computeraytracer.tracer import xla as xla_tracer
 
 
 def _assert_mostly_equal(got, want, frac=0.99, tol=1e-3, energy_frac=1e-3):
@@ -55,7 +55,7 @@ def test_sharded_render_dp_only(cornell_scene):
 
 
 def test_sharded_gradient_matches_single_device(cornell_scene, mesh42):
-    from computeraytracer_tpu.train import optimize as opt
+    from computeraytracer.train import optimize as opt
 
     w = h = 16
     params, static = opt.split_scene(cornell_scene, ("spectra",))
@@ -73,7 +73,7 @@ def test_sharded_gradient_matches_single_device(cornell_scene, mesh42):
 def test_sharded_gradient_layout_independent(cornell_scene):
     """Grad parity across mesh reshapes — (2,4) vs (8,1) must agree, so
     sharding layout never changes the training signal (VERDICT r1 §7)."""
-    from computeraytracer_tpu.train import optimize as opt
+    from computeraytracer.train import optimize as opt
 
     w = h = 16
     params, static = opt.split_scene(cornell_scene, ("spectra",))
@@ -91,9 +91,9 @@ def test_sharded_gradient_layout_independent(cornell_scene):
 def test_sharded_render_with_bvh_matches_brute(mesh42):
     """Mesh-scale sharding (BASELINE config 5 shape): BVH replicated per
     device, film rows sharded."""
-    from computeraytracer_tpu import bvh as bvh_mod
-    from computeraytracer_tpu.parallel import render_sharded as rs
-    from computeraytracer_tpu.scene import presets, scene_from_dict
+    from computeraytracer import bvh as bvh_mod
+    from computeraytracer.parallel import render_sharded as rs
+    from computeraytracer.scene import presets, scene_from_dict
 
     scene, _ = scene_from_dict(presets.mesh_scene(16, 16, subdivisions=2))
     bvh = bvh_mod.scene_bvh(scene)
@@ -114,34 +114,3 @@ def test_dryrun_multichip():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.dryrun_multichip(8)
-
-
-def test_sharded_pallas_kernel_matches_single_device(cornell_scene, mesh42):
-    from computeraytracer_tpu.tracer import pallas as pallas_tracer
-
-    w, h, spp = 16, 16, 4
-    single = pallas_tracer.render_accumulate(cornell_scene, w, h, spp,
-                                             max_depth=3)
-    sharded = render_sharded.render_accumulate_sharded(
-        cornell_scene, w, h, spp, mesh42, max_depth=3, kernel="pallas")
-    _assert_mostly_equal(np.asarray(sharded), np.asarray(single))
-
-
-def test_sharded_mesh_pallas_matches_single_device(mesh42):
-    """Mesh scene through the sharded Pallas path (config-5 shape):
-    per-shard block-coherent pixel ordering (render_sharded `block`)
-    is a pure permutation — seeds are global-coordinate — so the
-    sharded image matches the single-device render."""
-    from computeraytracer_tpu.scene import presets, scene_from_dict
-    from computeraytracer_tpu.tracer import pallas as pallas_tracer
-
-    w, h, spp = 32, 32, 2
-    scene, _ = scene_from_dict(presets.mesh_scene(w, h, subdivisions=2))
-    static = pallas_tracer.SceneStatic.from_scene(scene, mesh_min=64)
-    assert static.mesh_parts
-    single = pallas_tracer.render_accumulate(scene, w, h, spp, max_depth=2)
-    mesh = mesh_mod.make_mesh(jax.devices()[:2], (2, 1))
-    sharded = render_sharded.render_accumulate_sharded(
-        scene, w, h, spp, mesh, max_depth=2, kernel="pallas",
-        static=static)
-    _assert_mostly_equal(np.asarray(sharded), np.asarray(single))

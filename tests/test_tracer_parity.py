@@ -5,9 +5,11 @@ rounding; a tiny fraction of pixels may diverge where accumulated
 rounding flips a Russian-roulette or tie decision."""
 
 import numpy as np
+import pytest
 
-from computeraytracer_tpu.tracer import reference_cpu as oracle
-from computeraytracer_tpu.tracer import xla as xla_tracer
+from computeraytracer.scene import presets, scene_from_dict
+from computeraytracer.tracer import reference_cpu as oracle
+from computeraytracer.tracer import xla as xla_tracer
 
 
 def _compare(scene, w, h, sample, max_depth, frac_close=0.995, tol=1e-3,
@@ -48,6 +50,17 @@ def test_cornell_multibounce(cornell_scene):
 
 def test_cornell_second_sample(cornell_scene):
     _compare(cornell_scene, 12, 12, sample=7, max_depth=8)
+
+
+@pytest.mark.parametrize("depth", [1, 8])
+@pytest.mark.parametrize("preset", ["cornell_box_glassless",
+                                    "occluder_scene", "mesh_scene"])
+def test_more_scenes_and_depths(preset, depth):
+    """Pure diffuse, an occluded light, and triangles (brute scan), each
+    at a single bounce and at the full depth 8."""
+    kw = {"subdivisions": 1} if preset == "mesh_scene" else {}
+    scene, _ = scene_from_dict(getattr(presets, preset)(16, 16, **kw))
+    _compare(scene, 16, 16, sample=2, max_depth=depth)
 
 
 def test_mean_energy_sane(cornell_scene):

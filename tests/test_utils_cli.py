@@ -3,10 +3,11 @@
 import json
 
 import numpy as np
+import pytest
 
-from computeraytracer_tpu import cli
-from computeraytracer_tpu.utils.image import read_png, to_u8, write_png
-from computeraytracer_tpu.utils.metrics import RenderMeter
+from computeraytracer import cli
+from computeraytracer.utils.image import read_png, to_u8, write_png
+from computeraytracer.utils.metrics import RenderMeter
 
 
 def test_png_roundtrip(tmp_path):
@@ -68,3 +69,45 @@ def test_cli_render_progressive(tmp_path, capsys):
     import numpy as np
     # 8-bit PNGs: identical up to the accumulation-order half-ulp
     assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+def test_compile_cache_uses_env_dir(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, the helper returns it and sets
+    no directory of its own."""
+    import jax
+
+    from computeraytracer.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.enable() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch):
+    import pathlib
+
+    import jax
+
+    from computeraytracer.utils import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    path = compile_cache.enable()
+    root = pathlib.Path(__file__).resolve().parents[1]
+    assert path == str(root / ".jax_cache")
+    assert jax.config.jax_compilation_cache_dir == path
+
+
+def test_chip_smoke_refuses_cpu(capsys):
+    """chip_smoke.py exits nonzero, printing no result, without a GPU."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(SystemExit) as e:
+        mod.main([])
+    assert e.value.code not in (0, None)
+    assert '"ok"' not in capsys.readouterr().out

@@ -30,12 +30,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from computeraytracer_tpu.ops import intersect as isect
-from computeraytracer_tpu.ops import sampling
-from computeraytracer_tpu.ops import warp
-from computeraytracer_tpu.scene import presets, scene_from_dict
-from computeraytracer_tpu.scene import data as scene_data
-from computeraytracer_tpu.tracer import xla as xt
+from computeraytracer.ops import intersect as isect
+from computeraytracer.ops import sampling
+from computeraytracer.ops import warp
+from computeraytracer.scene import presets, scene_from_dict
+from computeraytracer.scene import data as scene_data
+from computeraytracer.tracer import xla as xt
 
 SG = jax.lax.stop_gradient
 W = H = 32
@@ -271,18 +271,17 @@ def test_shadow_boundary_majority_captured(occ_scene):
 
 
 # ---------------------------------------------------------------------------
-# 6. production (Pallas) path: screen warp wrapped around the kernel
+# 6. Triton megakernel path: screen warp wrapped around the kernel
 # ---------------------------------------------------------------------------
 
 def test_pallas_screen_warp_matches_xla(occ_scene):
-    """The screen warp on the Pallas fast path (tracer/pallas.py
+    """The screen warp on the megakernel path (tracer/pallas.py
     render_pixels vis_grads=("screen",)): primal allclose to the XLA
-    path's screen-warp render (same draws, same estimator; XLA fuses
-    float arithmetic differently from Mosaic, so equality is to f32
-    rounding, as for every pallas-vs-xla image comparison), gradient
-    close (the kernel's custom_vjp carries d(radiance)/d(ray) back
-    into the warp like XLA AD does)."""
-    from computeraytracer_tpu.tracer import pallas as pt
+    path's screen-warp render (same draws, same estimator; equality is
+    to f32 rounding, as for every kernel-vs-xla image comparison),
+    gradient close (the kernel's custom_vjp backward is the XLA
+    tracer's, warp included)."""
+    from computeraytracer.tracer import pallas as pt
 
     static = pt.SceneStatic.from_scene(occ_scene)
     a = np.asarray(xt.render_sample(occ_scene, W, H, 1, max_depth=1,
@@ -290,7 +289,7 @@ def test_pallas_screen_warp_matches_xla(occ_scene):
                                     use_remat=False))
     b = np.asarray(pt.render_sample(occ_scene, W, H, 1, max_depth=1,
                                     static=static,
-                                    vis_grads=("screen",)))
+                                    vis_grads=("screen",), interpret=True))
     np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6)
 
     sil, _ = _weights()
@@ -318,7 +317,8 @@ def test_pallas_screen_warp_matches_xla(occ_scene):
     g_pal = float(jax.jit(jax.grad(loss_of(
         lambda s, k: pt.render_sample(s, W, H, k, max_depth=1,
                                       static=static,
-                                      vis_grads=("screen",)))))(
+                                      vis_grads=("screen",),
+                                      interpret=True))))(
         jnp.float32(0.0)))
     assert abs(g_pal - g_xla) <= 0.05 * max(1.0, abs(g_xla)), (g_pal, g_xla)
 
@@ -326,13 +326,13 @@ def test_pallas_screen_warp_matches_xla(occ_scene):
 def test_silhouette_recovery_on_fast_path(occ_scene):
     """r4 ask 7's "done" bar: a silhouette-recovery optimization — move
     a displaced occluder back to its target position — CONVERGES using
-    gradients from the Pallas fast path (screen warp around the
+    gradients from the megakernel path (screen warp around the
     kernel). Interior AD alone has exactly zero signal for a pure
     translation (asserted in test_screen_silhouette_matches_fd), so
     any recovery is the boundary term."""
     import optax
 
-    from computeraytracer_tpu.tracer import pallas as pt
+    from computeraytracer.tracer import pallas as pt
 
     static = pt.SceneStatic.from_scene(occ_scene)
     spp = 32
@@ -346,7 +346,8 @@ def test_silhouette_recovery_on_fast_path(occ_scene):
         def body(acc, k):
             return acc + pt.render_sample(s, W, H, k, max_depth=1,
                                           static=static,
-                                          vis_grads=("screen",)), None
+                                          vis_grads=("screen",),
+                                          interpret=True), None
 
         acc, _ = jax.lax.scan(body, jnp.zeros((H, W, 3), jnp.float32),
                               jnp.arange(1, spp + 1, dtype=jnp.uint32))

@@ -12,9 +12,10 @@ identical across neighbors (scene/data.py layout note).
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from computeraytracer_tpu.ops import intersect as isect
-from computeraytracer_tpu.scene import mesh as mesh_ops
+from computeraytracer.ops import intersect as isect
+from computeraytracer.scene import mesh as mesh_ops
 
 
 def _shared_edges(faces):
@@ -92,46 +93,17 @@ def test_shared_edge_rays_always_hit_one_neighbor():
     assert not misses, f"{len(misses)} crack rays leaked, e.g. {misses[:5]}"
 
 
-def test_scene_scan_never_leaks_through_closed_surface():
-    """End-to-end: intersect_brute on a closed mesh must hit for every
-    edge-aimed ray (a leak would shoot through the closed surface)."""
-    from computeraytracer_tpu.scene import data as sdata
-
-    rng = np.random.default_rng(1)
-    verts, faces = mesh_ops.icosphere(2)
-    eye = np.array([0.0, 0.3, 3.0], np.float32)
-    shared = _shared_edges(faces)
-    front = _front_facing(verts, faces, eye)
-    pts, _ = _edge_targets(rng, verts, shared, faces, front, n_points=2)
-
-    cols = mesh_ops.mesh_arrays(verts, faces, reflectance=0, emission=0,
-                                material=0)
-    prims = sdata.ScenePrimitives(
-        index=np.arange(len(faces), dtype=np.int32),
-        **{k: cols[k] for k in ("category", "data1", "data2", "data3",
-                                "emission", "reflectance", "material")})
-    import jax
-    prims = jax.tree_util.tree_map(jnp.asarray, prims)
-
-    o = jnp.broadcast_to(jnp.asarray(eye), (len(pts), 3))
-    d = jnp.asarray(pts) - o
-    hit = isect.intersect_brute(o, d, jnp.full(len(pts), -1, jnp.int32),
-                                prims)
-    n_miss = int((~np.asarray(hit.hit)).sum())
-    assert n_miss == 0, f"{n_miss}/{len(pts)} edge rays leaked through"
-
-
-def _closed_mesh_prims():
+def _closed_mesh_prims(subdivisions=2, n_points=2):
     """(prims, eye, edge-aimed unit dirs) for the icosphere leak setup."""
-    from computeraytracer_tpu.scene import data as sdata
+    from computeraytracer.scene import data as sdata
     import jax
 
     rng = np.random.default_rng(3)
-    verts, faces = mesh_ops.icosphere(2)
+    verts, faces = mesh_ops.icosphere(subdivisions)
     eye = np.array([0.0, 0.3, 3.0], np.float32)
     shared = _shared_edges(faces)
     front = _front_facing(verts, faces, eye)
-    pts, _ = _edge_targets(rng, verts, shared, faces, front, n_points=2)
+    pts, _ = _edge_targets(rng, verts, shared, faces, front, n_points)
 
     cols = mesh_ops.mesh_arrays(verts, faces, reflectance=0, emission=0,
                                 material=0)
@@ -146,11 +118,19 @@ def _closed_mesh_prims():
     return prims, o, d
 
 
-def test_bvh_traversal_never_leaks_through_closed_surface():
-    """Same leak property through intersect_bvh: the padded slab test
-    (Ize 2013) must not cull an edge-grazing ray at a node boundary
-    before it reaches the one triangle that would accept it."""
-    from computeraytracer_tpu.bvh import builder, traverse
+def leaks_brute():
+    """Edge-aimed rays that intersect_brute lets through a closed mesh."""
+    prims, o, d = _closed_mesh_prims()
+    hit = isect.intersect_brute(jnp.asarray(o), jnp.asarray(d),
+                                jnp.full(len(o), -1, jnp.int32), prims)
+    return int((~np.asarray(hit.hit)).sum()), len(o)
+
+
+def leaks_bvh():
+    """The same through intersect_bvh: the padded slab test (Ize 2013)
+    must not cull an edge-grazing ray at a node boundary before it
+    reaches the one triangle that would accept it."""
+    from computeraytracer.bvh import builder, traverse
 
     prims, o, d = _closed_mesh_prims()
     bvh = builder.build_bvh(np.asarray(prims.category),
@@ -160,15 +140,82 @@ def test_bvh_traversal_never_leaks_through_closed_surface():
     hit = traverse.intersect_bvh(jnp.asarray(o), jnp.asarray(d),
                                  jnp.full(len(o), -1, jnp.int32),
                                  prims, bvh)
-    n_miss = int((~np.asarray(hit.hit)).sum())
-    assert n_miss == 0, f"{n_miss}/{len(o)} edge rays leaked through BVH"
+    return int((~np.asarray(hit.hit)).sum()), len(o)
+
+
+def leaks_megakernel(interpret):
+    """The same through the Triton megakernel's scan, whose edge
+    functions use `mul.rn.f32` products when compiled. The kernel
+    unrolls at most 64 primitives, so the closed surface is the
+    20-triangle icosahedron, with a light patch behind it facing the
+    camera: at max_depth=0 a camera ray gathers radiance only if it
+    hits the light directly, i.e. leaks through the mesh."""
+    from computeraytracer.scene import presets, scene_from_dict
+    from computeraytracer.tracer import pallas as pallas_tracer
+
+    _, o, d = _closed_mesh_prims(subdivisions=0, n_points=12)
+    verts, faces = mesh_ops.icosphere(0)
+    doc = {
+        "camera": {"eye": [0, 0.3, 3], "lookat": [0, 0, 0],
+                   "up": [0, 1, 0], "focalLength": 0.9,
+                   "width": 8, "height": 8},
+        "objects": {
+            "patches": [presets._patch([-50, -50, -5], [100, 0, 0],
+                                       [0, 100, 0], "white", "light",
+                                       "light")],
+            "meshes": [{"vertices": verts.tolist(),
+                        "faces": faces.tolist(), "emission": "dark",
+                        "reflectance": "white", "type": "diffuse"}],
+        },
+        "spectra": presets._cornell_spectra(),
+    }
+    scene, _ = scene_from_dict(doc)
+    r = len(o)
+    seed = jnp.ones((r, 4), jnp.uint32)
+    lambdas = jnp.tile(jnp.arange(4, dtype=jnp.int32) * 4 + 100, (r, 1))
+    radiance = pallas_tracer.trace_radiance(
+        scene, jnp.asarray(o), jnp.asarray(d), lambdas, seed, max_depth=0,
+        interpret=interpret)
+    # sanity: a ray that misses the mesh does reach the light
+    miss = pallas_tracer.trace_radiance(
+        scene, jnp.asarray(o[:1]), jnp.asarray([[0.5145, 0.0, -0.8575]]),
+        lambdas[:1], seed[:1], max_depth=0, interpret=interpret)
+    assert float(jnp.max(miss)) > 0, "light patch not visible"
+    return int((np.asarray(radiance).max(axis=1) > 0).sum()), r
+
+
+def test_scene_scan_never_leaks_through_closed_surface():
+    """End-to-end: intersect_brute on a closed mesh must hit for every
+    edge-aimed ray (a leak would shoot through the closed surface)."""
+    n_miss, n = leaks_brute()
+    assert n_miss == 0, f"{n_miss}/{n} edge rays leaked through"
+
+
+def test_bvh_traversal_never_leaks_through_closed_surface():
+    n_miss, n = leaks_bvh()
+    assert n_miss == 0, f"{n_miss}/{n} edge rays leaked through BVH"
+
+
+def test_megakernel_never_leaks_through_closed_surface():
+    n_leak, n = leaks_megakernel(interpret=True)
+    assert n > 80
+    assert n_leak == 0, f"{n_leak}/{n} edge rays leaked through the kernel"
+
+
+@pytest.mark.gpu
+def test_closed_surface_leaks_on_gpu(gpu_device):
+    """All three leak checks with the code as compiled for the card."""
+    for check in (leaks_brute, leaks_bvh,
+                  lambda: leaks_megakernel(interpret=False)):
+        n_leak, n = check()
+        assert n_leak == 0, (check, n_leak, n)
 
 
 def test_grazing_band_leak_bounded_on_closed_mesh():
     """Numeric CEILING on the grazing-band energy leak (r3 ask 8).
 
     The one known exception to the watertight guarantee is the
-    |n.d| < 1e-4 grazing rejection (megakernel.py bounce scan /
+    |n.d| < 1e-4 grazing rejection (kernels/megakernel.py scan /
     ops/intersect.py known-exception note): a ray that would exit a
     closed surface exactly through a silhouette band of some triangle
     can be rejected by BOTH triangles sharing the edge when each is
@@ -184,7 +231,7 @@ def test_grazing_band_leak_bounded_on_closed_mesh():
     ceiling 5e-4 is ~10x the one-in-24K resolution, pinning the leak
     at silhouettes to a bounded, tested quantity instead of a
     docstring caveat."""
-    from computeraytracer_tpu.scene import data as sdata
+    from computeraytracer.scene import data as sdata
     import jax
 
     verts, faces = mesh_ops.displaced_blob(4)  # 5120 tris, closed, bumpy
@@ -216,66 +263,3 @@ def test_grazing_band_leak_bounded_on_closed_mesh():
     assert frac <= 5e-4, (
         f"grazing-band leak {misses}/{n} = {frac:.2e} exceeds the 5e-4 "
         f"ceiling on a closed mesh")
-
-
-def test_mesh_part_scan_never_leaks_through_closed_surface():
-    """Same leak property through the Pallas megakernel's chunk-BVH mesh
-    scan (_scan_mesh_part): the node/chunk slab culls plus the in-kernel
-    watertight test must hit a mesh triangle for every edge-aimed ray.
-    The taped forward's per-bounce winner record is the observable."""
-    from computeraytracer_tpu.kernels import megakernel as mk
-    from computeraytracer_tpu.scene import presets, scene_from_dict
-    from computeraytracer_tpu.tracer import pallas as pallas_tracer
-
-    rng = np.random.default_rng(4)
-    verts, faces = mesh_ops.icosphere(2)
-    eye = np.array([0.0, 0.3, 3.0], np.float32)
-    shared = _shared_edges(faces)
-    front = _front_facing(verts, faces, eye)
-    pts, _ = _edge_targets(rng, verts, shared, faces, front, n_points=2)
-
-    doc = {
-        "camera": {"eye": [0, 0.3, 3], "lookat": [0, 0, 0],
-                   "up": [0, 1, 0], "focalLength": 0.9,
-                   "width": 8, "height": 8},
-        "objects": {
-            "patches": [presets._patch([-2, 5, -2], [4, 0, 0], [0, 0, 4],
-                                       "white", "light", "light")],
-            "meshes": [{"vertices": verts.tolist(),
-                        "faces": faces.tolist(), "emission": "dark",
-                        "reflectance": "white", "type": "diffuse"}],
-        },
-        "spectra": presets._cornell_spectra(),
-    }
-    scene, _ = scene_from_dict(doc)
-    static = mk.SceneStatic.from_scene(scene, mesh_min=64)
-    assert static.mesh_parts
-    part = static.mesh_parts[0]
-
-    tile_m = 8
-    tile = tile_m * mk.LANES
-    r = len(pts)
-    r_pad = -(-r // tile) * tile
-    m = r_pad // mk.LANES
-    o = np.broadcast_to(eye, (r, 3)).astype(np.float32)
-    d = pts - o
-    d = d / np.linalg.norm(d, axis=1, keepdims=True)
-
-    def planes(x, dtype):
-        out = np.zeros((x.shape[1], r_pad), dtype)
-        out[:, :r] = x.T.astype(dtype)
-        return jnp.asarray(out.reshape(x.shape[1], m, mk.LANES))
-
-    rays = planes(np.concatenate([o, d], axis=1), np.float32)
-    seeds = planes(np.ones((r, 4), np.uint32), np.uint32)
-    spect = jnp.ones((static.n_spectra * 4, m, mk.LANES), jnp.float32)
-    packs = pallas_tracer.mesh_packs_for(scene, static)
-    mesh_arrays = tuple(jnp.asarray(a) for p in packs for a in p.arrays)
-    fwd = mk.build_forward(static, max_depth=0, rr_start=1,
-                           tile_m=tile_m, interpret=True, taped=True)
-    _, tape_idx, _ = fwd(mk.pack_prims(scene, static), rays, seeds, spect,
-                         *mesh_arrays)
-    winner = np.asarray(tape_idx)[0].reshape(-1)[:r]
-    leaked = winner < part.start  # miss (-1) or the light patch
-    assert not leaked.any(), (
-        f"{int(leaked.sum())}/{r} edge rays leaked through the mesh scan")
