@@ -11,9 +11,11 @@ Mpaths/s, peak device memory and the card's name and power limit:
 
   gate       a GPU is present (exits nonzero otherwise, before anything
              else is imported)
-  render     `python -m computeraytracer render` (render() underneath),
-             1024^2, 64 spp, depth 8: finite, and the Cornell layout
-             (red wall left, green wall right, light at the top)
+  render     `python -m computeraytracer render` with the default
+             tracer choice (the XLA tracer at this size) and with
+             --kernel triton, 1024^2, 64 spp, depth 8, end to end with
+             compilation: finite, and the Cornell layout (red wall left,
+             green wall right, light at the top)
   train      make_train_step, 1024^2, depth 8, 4 spp/step, gradients
              w.r.t. spectra and vertices: finite, loss falls; plus the
              `train` CLI
@@ -26,8 +28,9 @@ Mpaths/s, peak device memory and the card's name and power limit:
   watertight the closed-surface leak checks of tests/test_watertight.py
              on the card, through every intersector that runs there
 
---multi runs only the sharded render on (4,1) and (2,2) meshes and one
-sharded training step, each against the single-card result.
+--multi runs only the sharded render on (4,1) and (2,2) meshes through
+both tracers and one sharded training step, each against the
+single-card result.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
@@ -123,10 +126,11 @@ def _match_fraction(got, want, tol):
 # (3.5e-4 of paths, Triton vs XLA at 1024^2 on the card). A pixel of
 # spp samples matches to 1e-3 relative unless one of its paths flipped,
 # so the bound allows 1e-3 flipped paths: at least 1 - spp * 1e-3 of the
-# pixels match. A systematic error (TF32, a wrong branch) moves every
-# pixel and fails that bound. The image means agree to 1e-2: one
-# flipped path through the glass can carry ~100x a pixel's mean, so at
-# 128^2 x 4 spp the means of two correct programs differ by ~2e-3.
+# pixels match. An error in a branch that many paths take moves far
+# more pixels than that and fails the bound. The image means agree to
+# 1e-2: one flipped path through the glass can carry ~100x a pixel's
+# mean, so at 128^2 x 4 spp the means of two correct programs differ by
+# ~2e-3.
 PATH_FLIP_RATE = 1e-3
 
 
@@ -162,20 +166,26 @@ def phase_render(ph, out_dir):
     import numpy as np
 
     from computeraytracer import cli
+    from computeraytracer.scene import presets, scene_from_dict
+    from computeraytracer.tracer import api
     from computeraytracer.utils.image import read_png
 
-    png = os.path.join(out_dir, "cornell_1024.png")
-    t0 = time.perf_counter()
-    rc = cli.main(["render", "--preset", "cornell_box", "--width", str(W),
-                   "--height", str(H), "--spp", "64", "--depth",
-                   str(DEPTH), "--out", png])
-    seconds = time.perf_counter() - t0
-    _check(rc == 0, f"render CLI returned {rc}")
-    img = read_png(png)
-    _check(img.shape == (H, W, 3), f"PNG shape {img.shape}")
-    check_cornell_layout(img.astype(np.float64) / 255.0)
-    ph.emit("render", seconds, W * H * 64, png=png, spp=64, depth=DEPTH,
-            note="seconds include compilation")
+    scene, _ = scene_from_dict(presets.cornell_box(W, H))
+    for flag in ("auto", "triton"):
+        kernel = api.resolve_kernel(scene, flag, W * H * 64)
+        png = os.path.join(out_dir, f"cornell_1024_{kernel}.png")
+        t0 = time.perf_counter()
+        rc = cli.main(["render", "--preset", "cornell_box", "--width",
+                       str(W), "--height", str(H), "--spp", "64", "--depth",
+                       str(DEPTH), "--kernel", flag, "--out", png])
+        seconds = time.perf_counter() - t0
+        _check(rc == 0, f"render CLI ({kernel}) returned {rc}")
+        img = read_png(png)
+        _check(img.shape == (H, W, 3), f"PNG shape {img.shape}")
+        check_cornell_layout(img.astype(np.float64) / 255.0)
+        ph.emit("render", seconds, W * H * 64, flag=flag, kernel=kernel,
+                png=png, spp=64, depth=DEPTH,
+                note="seconds: the whole CLI call, compilation included")
 
 
 def _train_setup(scene, w, h, spp, trainable, perturb_row=2):
@@ -371,8 +381,7 @@ def phase_mesh(ph):
     _check(np.isfinite(np.asarray(out)).all(), "non-finite mesh render")
     _check(float(np.asarray(out).mean()) > 0, "black mesh render")
     ph.emit("mesh_render", best, W * H, n_prims=n_prims, spp=1,
-            first_call_seconds=first,
-            kernel=api.resolve_kernel(scene, "auto"))
+            first_call_seconds=first, kernel="xla")
 
     trainable = ("spectra", "data1", "data2", "data3")
     step, params, opt_state, target = _train_setup(scene, W, H, 1,
@@ -408,11 +417,13 @@ def phase_watertight(ph):
 
 
 def phase_multi(ph):
-    """Sharded render on (4,1) and (2,2) meshes and one sharded training
-    step, against the single-card results with the same seeds.
+    """Sharded render on (4,1) and (2,2) meshes through both tracers, and
+    one sharded training step, against the single-card XLA results with
+    the same seeds.
 
-    Tolerance: shards fuse differently from the single-card program, so
-    a rare Russian-roulette decision can flip (parallel/render_sharded.py
+    Tolerance: shards fuse differently from the single-card program, and
+    the megakernel rounds differently from XLA, so a rare
+    Russian-roulette decision can flip (parallel/render_sharded.py
     docstring): images are held to the path-flip bound of
     _check_image_parity, gradients to 1e-2 in relative L2 norm."""
     import jax
@@ -432,16 +443,20 @@ def phase_multi(ph):
     scene, _ = scene_from_dict(presets.cornell_box(W, H))
     single = np.asarray(xla_tracer.render_accumulate(scene, W, H, spp,
                                                      DEPTH))
-    for shape in ((4, 1), (2, 2)):
+    # the kernel on one mesh: each mesh shape is another per-card ray
+    # count, and so another minute of kernel compilation
+    for kernel, shape in (("xla", (4, 1)), ("xla", (2, 2)),
+                          ("triton", (4, 1))):
         mesh = mesh_mod.make_mesh(devs, shape)
         out, first, best = _timed(lambda: render_sharded.
                                   render_accumulate_sharded(
-                                      scene, W, H, spp, mesh, DEPTH),
+                                      scene, W, H, spp, mesh, DEPTH,
+                                      kernel=kernel),
                                   iters=2)
         parity = _check_image_parity(f"mesh {shape}", np.asarray(out),
                                      single, spp)
         ph.emit("multi_render", best, W * H * spp, mesh=list(shape),
-                **parity, first_call_seconds=first)
+                kernel=kernel, **parity, first_call_seconds=first)
 
     mesh = mesh_mod.make_mesh(devs, (2, 2))
     target = jnp.zeros((H, W, 3), jnp.float32)

@@ -33,8 +33,11 @@ N_BINS = 16
 DEFAULT_MAX_LEAF = 4
 # Scenes with more primitives than this trace through the BVH from every
 # entry point (tracer/api.py, train/optimize.py); smaller ones keep the
-# brute scan, which needs no traversal loop.
-BVH_MIN_PRIMS = 64
+# brute scan. On the H100 the XLA brute scan beat the BVH at every count
+# timed, 26 to 326 primitives (0.185 s vs 0.472 s per 1024^2 sample at
+# 326; benchmarks/tracer_crossover.py, PERF.md); the two lines cross
+# near 1000 when extrapolated.
+BVH_MIN_PRIMS = 1024
 
 
 class BVHArrays(NamedTuple):

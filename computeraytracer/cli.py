@@ -46,7 +46,7 @@ def cmd_render(args) -> int:
     from computeraytracer.tracer import api
 
     scene, w, h = _load(args)
-    args.kernel = api.resolve_kernel(scene, args.kernel)
+    args.kernel = api.resolve_kernel(scene, args.kernel, w * h * args.spp)
     print(f"tracer: {args.kernel}", file=sys.stderr)
     bvh = None
     if args.kernel == "xla":
@@ -55,7 +55,15 @@ def cmd_render(args) -> int:
         if bvh is not None:
             print(f"BVH: {bvh.n_nodes} nodes "
                   f"({time.perf_counter() - t0:.2f}s)", file=sys.stderr)
-    if args.kernel == "triton":
+    if args.sharded:
+        from computeraytracer.parallel import mesh as mesh_mod
+        from computeraytracer.parallel import render_sharded
+        mesh = mesh_mod.make_mesh()
+
+        def accumulate(*a, **kw):
+            return render_sharded.render_accumulate_sharded(
+                *a, mesh=mesh, bvh=bvh, kernel=args.kernel, **kw)
+    elif args.kernel == "triton":
         from computeraytracer.tracer import pallas as tracer_mod
         accumulate = tracer_mod.render_accumulate
     else:
@@ -74,16 +82,7 @@ def cmd_render(args) -> int:
 
     meter = RenderMeter(jsonl_path=args.metrics)
     meter.start()
-    if args.sharded:
-        if args.kernel != "xla" or args.progressive:
-            raise SystemExit("--sharded renders with --kernel xla and "
-                             "without --progressive")
-        from computeraytracer.parallel import mesh as mesh_mod
-        from computeraytracer.parallel import render_sharded
-        accum = render_sharded.render_accumulate_sharded(
-            scene, w, h, args.spp, mesh_mod.make_mesh(),
-            max_depth=args.depth, bvh=bvh)
-    elif args.progressive:
+    if args.progressive:
         # the reference's defining behavior is live progressive
         # refinement: 1 spp per animation frame into a never-cleared
         # accumulator, blitted every frame (main.js:584-623). The CLI
@@ -191,11 +190,15 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--out", default="out.png")
     r.add_argument("--kernel", choices=["auto", "xla", "triton"],
                    default="auto",
-                   help="xla: the XLA tracer (meshes through the BVH); "
-                   "triton: the forward megakernel (GPU only); auto: "
-                   "triton on a GPU when the scene is small enough")
+                   help="xla: the XLA tracer (large scenes through the "
+                   "BVH); triton: the forward megakernel (GPU only, small "
+                   "scenes; ~25x faster once compiled, but its compile "
+                   "takes about a minute); auto: triton on a GPU when the "
+                   "scene is small and the render long enough to pay for "
+                   "the compile")
     r.add_argument("--sharded", action="store_true",
-                   help="shard over all visible devices")
+                   help="shard film rows and samples over all visible "
+                   "devices (parallel/render_sharded.py), with either tracer")
     r.add_argument("--exposure", type=float, default=2.2)
     r.add_argument("--progressive", type=int, default=0, metavar="N",
                    help="rewrite --out every N samples from the running "

@@ -48,9 +48,12 @@ class RenderConfig:
     max_depth: int = 8
     # Russian roulette from depth > rr_start (reference: depth > 1).
     rr_start: int = 1
-    # Which tracer: "xla" (tracer/xla.py; meshes go through the BVH),
-    # "triton" (the forward megakernel, GPU only) or "auto" (triton on a
-    # GPU when the scene is small enough to unroll; tracer/api.py).
+    # Which tracer: "xla" (tracer/xla.py; scenes of more than
+    # bvh.builder.BVH_MIN_PRIMS primitives go through the BVH), "triton"
+    # (the forward megakernel, GPU only: ~25x the XLA rate once compiled,
+    # but its compile costs about a minute per process) or "auto" (triton
+    # on a GPU for small scenes and renders long enough to pay for that;
+    # tracer/api.resolve_kernel).
     kernel: str = "auto"
     # Ray-batch chunk for memory control (0 = whole image at once).
     ray_chunk: int = 0

@@ -45,7 +45,6 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plt
 
 from computeraytracer import config as C
-from computeraytracer.bvh.builder import BVH_MIN_PRIMS
 
 T_MIN = 0.001
 ETA1, ETA2 = 1.0, 1.5
@@ -54,9 +53,11 @@ ETA1, ETA2 = 1.0, 1.5
 # measured as fast as any block/warp pair tried on the H100 (PERF.md).
 BLOCK = 128
 NUM_WARPS = 4
-# The scan is unrolled per primitive at build time; scenes big enough
-# for the BVH go through it on the XLA path (bvh/traverse.py) instead.
-MAX_UNROLLED_PRIMS = BVH_MIN_PRIMS
+# The scan is unrolled per primitive at build time, so compile time
+# grows with the scene: ~55 s at the Cornell box's 18 primitives on the
+# H100 (PERF.md). The cap is not measured; larger scenes take the XLA
+# tracer (kernel="xla").
+MAX_UNROLLED_PRIMS = 64
 
 
 class SceneStatic(NamedTuple):

@@ -6,10 +6,13 @@ positions (primitives data1/2/3) and material parameters (spectra rows)
 through the path tracer, with detached sampling (common random numbers).
 
 A scene is split into (params, static); the loss renders the scene from
-merged params through the XLA tracer and compares to a target in XYZ.
-Gradients are JAX AD of that tracer. With a device mesh, rendering is
-sharded and jax.grad transposes the forward psum into the parameter
-gradient all-reduce automatically.
+merged params and compares to a target in XYZ. Gradients are JAX AD of
+the XLA tracer: kernel="triton" renders the forward in the Triton
+megakernel, whose custom_vjp backward recomputes the XLA tracer
+(tracer/pallas.py), so a step then costs the kernel's forward on top of
+the XLA step. With a device mesh, rendering is sharded and jax.grad
+transposes the forward psum into the parameter gradient all-reduce
+automatically.
 """
 
 from __future__ import annotations
@@ -60,21 +63,35 @@ def merge_scene(static_scene, params):
 
 def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
                     first_sample=1, mesh=None, use_remat=True, bvh=None,
-                    vis_grads: bool = False):
+                    vis_grads: bool = False, kernel: str = "xla",
+                    interpret: bool = False):
     """Mean XYZ over spp samples through the XLA tracer (bvh: the
-    scene's BVHArrays, or None for the brute scan).
+    scene's BVHArrays, or None for the brute scan) or, with
+    kernel="triton", the megakernel (interpret=True: the Pallas
+    interpreter).
 
     vis_grads=True enables the warped-area visibility gradients
     (ops/warp.py): boundary-aware AD, primal bit-identical across
     vis_grads modes — but NOT to the vis_grads=False render (vis_grads
     disables pixel stratification; see tracer/xla.py:render_pixels)."""
+    if kernel not in ("xla", "triton"):
+        raise ValueError(f"unknown kernel {kernel!r}")
     if mesh is None:
         accum = jnp.zeros((height, width, 3), jnp.float32)
+        if kernel == "triton":
+            from computeraytracer.tracer import pallas as pallas_tracer
+            static = pallas_tracer.SceneStatic.from_scene(scene)
+            render_one = partial(pallas_tracer.render_sample,
+                                 static=static, vis_grads=vis_grads,
+                                 interpret=interpret)
+        else:
+            render_one = partial(xla_tracer.render_sample,
+                                 use_remat=use_remat, bvh=bvh,
+                                 vis_grads=vis_grads)
 
         def body(acc, s):
-            return acc + xla_tracer.render_sample(
-                scene, width, height, s, max_depth, rr_start, use_remat,
-                bvh=bvh, vis_grads=vis_grads), None
+            return acc + render_one(scene, width, height, s, max_depth,
+                                    rr_start), None
 
         samples = (jnp.asarray(first_sample, jnp.uint32)
                    + jnp.arange(spp, dtype=jnp.uint32))
@@ -82,19 +99,22 @@ def render_mean_xyz(scene, width, height, spp, max_depth, rr_start=1,
     else:
         accum = render_sharded.render_accumulate_sharded(
             scene, width, height, spp, mesh, max_depth, rr_start,
-            first_sample, use_remat=use_remat, bvh=bvh)
+            first_sample, use_remat=use_remat, bvh=bvh, kernel=kernel,
+            interpret=interpret)
     return accum / jnp.float32(spp)
 
 
 def make_loss_fn(static_scene, width, height, spp, max_depth,
-                 rr_start: int = 1, mesh=None, use_remat=True):
+                 rr_start: int = 1, mesh=None, use_remat=True,
+                 kernel: str = "xla", interpret: bool = False):
     """L2 loss in XYZ between the rendered mean and a target image.
 
-    Mesh-size scenes (bvh.builder.BVH_MIN_PRIMS) trace through a BVH
-    whose topology is built once from the initial geometry; every call
-    refits its node boxes to the current (traced) vertices."""
+    With the XLA tracer, mesh-size scenes (bvh.builder.BVH_MIN_PRIMS)
+    trace through a BVH whose topology is built once from the initial
+    geometry; every call refits its node boxes to the current (traced)
+    vertices."""
     refit = None
-    bvh0 = bvh_builder.auto_bvh(static_scene)
+    bvh0 = bvh_builder.auto_bvh(static_scene) if kernel == "xla" else None
     if bvh0 is not None:
         refit = bvh_builder.make_refit(bvh0)
 
@@ -104,14 +124,16 @@ def make_loss_fn(static_scene, width, height, spp, max_depth,
         if refit is not None:
             bvh = refit(jax.lax.stop_gradient(scene.primitives))
         img = render_mean_xyz(scene, width, height, spp, max_depth,
-                              rr_start, first_sample, mesh, use_remat, bvh)
+                              rr_start, first_sample, mesh, use_remat, bvh,
+                              kernel=kernel, interpret=interpret)
         return jnp.mean((img - target) ** 2)
 
     return loss_fn
 
 
 def make_train_step(static_scene, optimizer, width, height, spp, max_depth,
-                    rr_start: int = 1, mesh=None, spectra_rows=None):
+                    rr_start: int = 1, mesh=None, spectra_rows=None,
+                    kernel: str = "xla", interpret: bool = False):
     """jitted (params, opt_state, target, first_sample) -> updated state.
 
     spectra_rows: optional sequence of spectra ROW indices to train;
@@ -122,7 +144,8 @@ def make_train_step(static_scene, optimizer, width, height, spp, max_depth,
     row, never perturbed, drifted to 2.5x its own scale while the loss
     plateaued)."""
     loss_fn = make_loss_fn(static_scene, width, height, spp, max_depth,
-                           rr_start, mesh)
+                           rr_start, mesh, kernel=kernel,
+                           interpret=interpret)
     row_mask = None
     if spectra_rows is not None:
         n_rows = static_scene.spectra.shape[0]
@@ -172,7 +195,8 @@ def optimize(scene, target, width, height, *, trainable=("spectra",),
              rr_start: int = 1, mesh=None, checkpoint_dir: Optional[str] = None,
              checkpoint_every: int = 25, callback=None,
              fresh_samples: bool = False,
-             lr_schedule: Optional[str] = None, spectra_rows=None):
+             lr_schedule: Optional[str] = None, spectra_rows=None,
+             kernel: str = "xla", interpret: bool = False):
     """Run the material/geometry optimization loop (config 4).
 
     fresh_samples=False (default) uses the SAME sample set every step
@@ -184,7 +208,8 @@ def optimize(scene, target, width, height, *, trainable=("spectra",),
     learning rate to ~0 over `steps` — a fixed Adam lr oscillates
     around the optimum at its step size (measured: the 1024^2 config-4
     recovery plateaus at loss ~0.02 with lr 0.06; the decay settles
-    it). Returns (scene, losses).
+    it). kernel and interpret as in render_mean_xyz. Returns (scene,
+    losses).
     """
     params, static_scene = split_scene(scene, trainable)
     if lr_schedule == "cosine":
@@ -197,7 +222,8 @@ def optimize(scene, target, width, height, *, trainable=("spectra",),
     opt_state = optimizer.init(params)
     step_fn = make_train_step(static_scene, optimizer, width, height, spp,
                               max_depth, rr_start, mesh,
-                              spectra_rows=spectra_rows)
+                              spectra_rows=spectra_rows, kernel=kernel,
+                              interpret=interpret)
     losses = []
     ckpt = None
     if checkpoint_dir is not None:

@@ -1,16 +1,23 @@
-"""computeraytracer_tpu — a TPU-native differentiable spectral path tracer.
+"""The package's former import name, kept as an alias of
+`computeraytracer`.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the WebGPU
-compute ray tracer Meryx/ComputeRayTracer (see SURVEY.md): progressive
-hero-wavelength spectral path tracing of JSON scenes (planar patches,
-spheres, triangle meshes) with next-event estimation + MIS, diffuse/glass
-BSDFs, Beer-Lambert transmission, CIE-XYZ accumulation and sRGB display —
-plus the capabilities the reference lacks: BVH acceleration, hand-derived
-backward kernels (differentiable w.r.t. geometry and spectra), multi-chip
-sharding via jax.sharding, tests, and benchmarks.
+Importing it imports every Python module of computeraytracer and
+registers each under this name too, so `import <this name>.tracer.api`
+and `python -m <this name> render ...` reach the same module objects as
+the new name. New code imports computeraytracer.
 """
 
-__version__ = "0.1.0"
+import importlib
+import pkgutil
+import sys
 
-from computeraytracer_tpu.config import RenderConfig  # noqa: F401
-from computeraytracer_tpu.scene.data import Scene  # noqa: F401
+import computeraytracer as _pkg
+
+_prefix = _pkg.__name__ + "."
+for _info in pkgutil.walk_packages(_pkg.__path__, _prefix):
+    _leaf = _info.name.rsplit(".", 1)[-1]
+    _spec = _info.module_finder.find_spec(_info.name)
+    if _leaf != "__main__" and _spec.origin.endswith(".py"):
+        sys.modules[__name__ + "." + _info.name[len(_prefix):]] = (
+            importlib.import_module(_info.name))
+sys.modules[__name__] = _pkg

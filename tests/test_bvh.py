@@ -189,12 +189,25 @@ def test_refit_render_and_gradient_match_brute(mesh_scene_small):
                                    rtol=1e-3, atol=1e-6)
 
 
-def test_auto_bvh_by_primitive_count(cornell_scene, mesh_scene_small):
+@pytest.fixture(scope="module")
+def mesh_scene_large():
+    """More primitives than BVH_MIN_PRIMS: 6 walls + 1,280 triangles."""
+    from computeraytracer.bvh import builder
+
+    scene, _ = scene_from_dict(presets.mesh_scene(8, 8, subdivisions=3))
+    assert int(scene.primitives.count) > builder.BVH_MIN_PRIMS
+    return scene
+
+
+def test_auto_bvh_by_primitive_count(cornell_scene, mesh_scene_small,
+                                     mesh_scene_large):
     assert bvh_mod.auto_bvh(cornell_scene) is None
-    assert bvh_mod.auto_bvh(mesh_scene_small) is not None
+    # 326 primitives: the brute scan is the faster of the two there
+    assert bvh_mod.auto_bvh(mesh_scene_small) is None
+    assert bvh_mod.auto_bvh(mesh_scene_large) is not None
 
 
-def test_api_render_mesh_goes_through_bvh(mesh_scene_small, monkeypatch):
+def test_api_render_mesh_goes_through_bvh(mesh_scene_large, monkeypatch):
     """render() on a mesh-size scene traverses the BVH, never the brute
     scan, and matches the brute image."""
     from computeraytracer.ops import intersect as isect
@@ -202,13 +215,13 @@ def test_api_render_mesh_goes_through_bvh(mesh_scene_small, monkeypatch):
 
     w = h = 8
     want = np.asarray(xla_tracer.render_accumulate(
-        mesh_scene_small, w, h, 1, max_depth=2))
+        mesh_scene_large, w, h, 1, max_depth=2))
 
     def no_brute(*a, **k):
         raise AssertionError("brute scan used for a mesh scene")
 
     monkeypatch.setattr(isect, "intersect_brute", no_brute)
-    out = api.render(mesh_scene_small, width=w, height=h, spp=1,
+    out = api.render(mesh_scene_large, width=w, height=h, spp=1,
                      max_depth=2)
     np.testing.assert_allclose(np.asarray(out["accum_xyz"]), want,
                                rtol=1e-4, atol=1e-5)

@@ -111,6 +111,19 @@ def test_optimize_reduces_loss(simple_scene):
     assert losses[-1] < losses[0] * 0.8, losses
 
 
+def test_optimize_with_pallas_kernel(simple_scene):
+    """The optimization loop with the forward in the Triton megakernel
+    (Pallas interpreter on the CPU) and the XLA tracer's gradient."""
+    w = h = 12
+    target = opt.render_mean_xyz(simple_scene, w, h, spp=1, max_depth=2)
+    perturbed = simple_scene._replace(
+        spectra=jnp.asarray(simple_scene.spectra).at[2].mul(0.3))
+    _, losses = opt.optimize(perturbed, target, w, h, steps=6,
+                             learning_rate=0.05, spp=1, max_depth=2,
+                             kernel="triton", interpret=True)
+    assert losses[-1] < losses[0] * 0.9, losses
+
+
 def test_mesh_train_step_uses_refit_bvh():
     """A mesh-size scene trains through the BVH (bvh.builder.auto_bvh):
     the step's loss and vertex gradient equal the brute-scan ones, and
@@ -121,7 +134,7 @@ def test_mesh_train_step_uses_refit_bvh():
     from computeraytracer.bvh import builder
     from computeraytracer.scene import presets, scene_from_dict
 
-    scene, _ = scene_from_dict(presets.mesh_scene(8, 8, subdivisions=1))
+    scene, _ = scene_from_dict(presets.mesh_scene(8, 8, subdivisions=3))
     assert int(scene.primitives.count) > builder.BVH_MIN_PRIMS
     w = h = 8
     target = jnp.zeros((h, w, 3), jnp.float32)

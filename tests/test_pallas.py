@@ -167,3 +167,41 @@ def test_compiled_kernel_matches_xla_on_gpu(gpu_device):
                                                  max_depth=8))
     frac, worst = _match_fraction(got, want, 1e-3)
     assert frac >= 0.99, (frac, worst)
+
+
+def test_ray_chunk_bands_through_kernel(cornell_scene):
+    """render()'s ray_chunk row bands run through the megakernel as well
+    (tracer/api.py) and match its one-shot accumulation."""
+    from computeraytracer import RenderConfig
+    from computeraytracer.tracer import api
+
+    cfg = RenderConfig(width=16, height=16, spp=2, max_depth=3,
+                       kernel="triton", ray_chunk=64)
+    static = pallas_tracer.SceneStatic.from_scene(cornell_scene)
+    got = np.asarray(api._render_accumulate_chunked(
+        cornell_scene, cfg, None, static, interpret=True))
+    want = np.asarray(pallas_tracer.render_accumulate(
+        cornell_scene, 16, 16, 2, 3, interpret=True))
+    assert got.shape == want.shape == (16, 16, 3)
+    frac, worst = _match_fraction(got, want, 1e-4)
+    assert frac >= 0.99, (frac, worst)
+
+
+@pytest.mark.parametrize("preset,paths,backend,kernel,want", [
+    ("cornell_box", 1024 * 1024 * 1024, "gpu", "auto", "triton"),
+    ("cornell_box", 1024 * 1024 * 64, "gpu", "auto", "xla"),
+    ("mesh_scene", 1024 * 1024 * 1024, "gpu", "auto", "xla"),
+    ("cornell_box", 1024 * 1024 * 1024, "cpu", "auto", "xla"),
+    ("cornell_box", 16, "cpu", "triton", "triton"),
+    ("cornell_box", 1024 * 1024 * 1024, "gpu", "xla", "xla"),
+])
+def test_auto_kernel_choice(monkeypatch, preset, paths, backend, kernel,
+                            want):
+    """kernel="auto" takes the megakernel only on a GPU, for a scene it
+    unrolls, and for a render long enough to pay for its compile."""
+    from computeraytracer.tracer import api
+
+    kw = {"subdivisions": 1} if preset == "mesh_scene" else {}
+    scene, _ = scene_from_dict(getattr(presets, preset)(8, 8, **kw))
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert api.resolve_kernel(scene, kernel, paths) == want

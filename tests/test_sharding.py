@@ -114,3 +114,35 @@ def test_dryrun_multichip():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.dryrun_multichip(8)
+
+
+def test_sharded_pallas_kernel_matches_single_device(cornell_scene, mesh42):
+    """The sharded render through the Triton megakernel (Pallas
+    interpreter on the CPU) matches the single-device kernel render."""
+    from computeraytracer.tracer import pallas as pallas_tracer
+
+    w, h, spp = 16, 16, 4
+    single = pallas_tracer.render_accumulate(cornell_scene, w, h, spp,
+                                             max_depth=3, interpret=True)
+    sharded = render_sharded.render_accumulate_sharded(
+        cornell_scene, w, h, spp, mesh42, max_depth=3, kernel="triton",
+        interpret=True)
+    _assert_mostly_equal(np.asarray(sharded), np.asarray(single))
+
+
+def test_sharded_kernel_gradient_matches_xla(cornell_scene, mesh42):
+    """The sharded loss with the forward in the megakernel takes the XLA
+    tracer's gradient (its custom_vjp), same as the unsharded XLA loss."""
+    from computeraytracer.train import optimize as opt
+
+    w = h = 16
+    params, static = opt.split_scene(cornell_scene, ("spectra",))
+    target = jnp.zeros((h, w, 3), jnp.float32)
+    loss_x = opt.make_loss_fn(static, w, h, 2, 2)
+    loss_t = opt.make_loss_fn(static, w, h, 2, 2, mesh=mesh42,
+                              kernel="triton", interpret=True)
+    g_x = jax.grad(loss_x)(params, target, jnp.uint32(1))
+    g_t = jax.grad(loss_t)(params, target, jnp.uint32(1))
+    np.testing.assert_allclose(np.asarray(g_t["spectra"]),
+                               np.asarray(g_x["spectra"]),
+                               rtol=1e-4, atol=1e-7)

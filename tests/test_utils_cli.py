@@ -71,6 +71,50 @@ def test_cli_render_progressive(tmp_path, capsys):
     assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
 
 
+def test_cli_render_sharded_default_kernel(tmp_path, capsys):
+    """--sharded runs with the default --kernel, one-shot and
+    progressive, over the 8-device CPU mesh; both images agree."""
+    import numpy as np
+
+    common = ["render", "--preset", "simple_scene", "--width", "16",
+              "--height", "16", "--spp", "4", "--depth", "2", "--sharded"]
+    out_s = tmp_path / "shot.png"
+    assert cli.main(common + ["--out", str(out_s)]) == 0
+    out_p = tmp_path / "prog.png"
+    assert cli.main(common + ["--progressive", "2",
+                              "--out", str(out_p)]) == 0
+    a = read_png(str(out_p))
+    b = read_png(str(out_s))
+    assert b.shape == (16, 16, 3) and b.max() > 0
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+def test_former_package_name_aliases_modules():
+    """The package's former import name (the alias package beside it)
+    reaches the same module objects, and `python -m` on it runs the
+    CLI."""
+    import importlib
+    import os
+    import pathlib
+    import pkgutil
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    aliases = [m.name for m in pkgutil.iter_modules([str(root)])
+               if m.name.startswith("computeraytracer_")]
+    assert aliases
+    for name in aliases:
+        assert (importlib.import_module(name + ".tracer.api")
+                is importlib.import_module("computeraytracer.tracer.api"))
+        out = subprocess.run(
+            [sys.executable, "-m", name, "info", "--preset", "simple_scene"],
+            capture_output=True, text=True, cwd=root, timeout=300,
+            env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert out.returncode == 0, out.stderr
+        assert json.loads(out.stdout)["primitives"] == 4
+
+
 def test_compile_cache_uses_env_dir(monkeypatch, tmp_path):
     """With JAX_COMPILATION_CACHE_DIR set, the helper returns it and sets
     no directory of its own."""
